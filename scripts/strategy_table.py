@@ -1,9 +1,9 @@
-"""Measured influence-strategy comparison table (VERDICT r2 item 5).
+"""Measured influence-strategy comparison table.
 
 Builds the same exact octree under every culling strategy and reports
 list tightness (mean/median/max triangles per leaf), build wall time and
-query throughput. Run on the TPU for the recorded numbers; runs on CPU
-too (slower).
+query throughput. Run it on the GPU for numbers worth recording; it runs
+on the CPU too (slower, with --cpu).
 
 Usage: python scripts/strategy_table.py [--depth 6] [--big]
 """
@@ -29,9 +29,9 @@ def main() -> None:
     ap.add_argument("--queries", type=int, default=1 << 20)
     args = ap.parse_args()
 
-    if args.cpu:
-        import jax
+    import jax
 
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
@@ -60,11 +60,11 @@ def main() -> None:
             np.asarray(ex.box.min) + 1e-4, np.asarray(ex.box.max) - 1e-4,
             (args.queries, 3),
         ).astype(np.float32))
-        float(jnp.sum(ex.get_distance(pts)))  # compile + warm
+        jax.block_until_ready(ex.get_distance(pts))  # compile + warm
         ts = []
         for _ in range(3):
             t0 = time.perf_counter()
-            float(jnp.sum(ex.get_distance(pts)))
+            jax.block_until_ready(ex.get_distance(pts))
             ts.append(time.perf_counter() - t0)
         rate = args.queries / min(ts) / 1e6
         print(f"{strategy:>10} {len(cnts):>8} {cnts.mean():>8.1f} "

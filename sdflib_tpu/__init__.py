@@ -1,11 +1,11 @@
-"""sdflib_tpu — TPU-native differentiable signed-distance-field framework.
+"""sdflib_tpu — a differentiable signed-distance-field framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of
 UPC-ViRVIG/SdfLib: exact triangle-list octrees, approximate
 tricubic-polynomial octrees, brute-force oracles, uniform grids,
 sphere-traced rendering, differentiable queries, serialization, and a CLI
-tool suite — built for TPU meshes (pjit/shard_map) rather than ported from
-the reference C++.
+tool suite — built for accelerator meshes (shard_map) rather than ported
+from the reference C++.
 """
 
 import os as _os
@@ -13,27 +13,27 @@ import os as _os
 import jax as _jax
 
 # Persistent XLA compilation cache: octree builds compile one kernel per
-# (chunk, candidate-width) bucket; re-runs must not pay the (remote) TPU
-# compile latency again. Opt out with SDFLIB_TPU_NO_COMPILE_CACHE=1.
-# Enabled only when the environment explicitly selects a non-CPU platform:
-# XLA:CPU AOT cache entries embed machine features and can SIGILL when
-# reloaded on a host with different feature detection, and an unset
-# JAX_PLATFORMS may auto-select CPU.
-_platform = _os.environ.get("JAX_PLATFORMS", "")
-if not _os.environ.get("SDFLIB_TPU_NO_COMPILE_CACHE") and _platform not in (
-    "", "cpu"
-):
-    try:
-        if _jax.config.jax_compilation_cache_dir is None:
-            _jax.config.update(
-                "jax_compilation_cache_dir",
-                _os.path.expanduser("~/.cache/sdflib_tpu/jax_cache"),
-            )
-            # Cache even sub-second compiles: on remote-compile setups every
-            # new-shape eager op costs a ~0.5 s round trip otherwise.
-            _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    except Exception:  # cache is best-effort; never block import
-        pass
+# (chunk, candidate-width) bucket, and re-runs should not pay for them
+# again. Opt out with SDFLIB_NO_COMPILE_CACHE=1.
+_CHECKOUT = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
+COMPILE_CACHE_DIR = _os.path.join(_CHECKOUT, ".jax_cache")
+
+
+def compile_cache_dir(environ=_os.environ):
+    """The directory this package points JAX's compile cache at: None when
+    ``JAX_COMPILATION_CACHE_DIR`` is set (JAX reads that itself) or the
+    cache is opted out of; otherwise the one fixed directory
+    ``COMPILE_CACHE_DIR`` inside the checkout (a fixed path, because the
+    path is part of each cache entry's key)."""
+    if environ.get("SDFLIB_NO_COMPILE_CACHE") or environ.get(
+        "JAX_COMPILATION_CACHE_DIR"
+    ):
+        return None
+    return COMPILE_CACHE_DIR
+
+
+if compile_cache_dir() is not None:
+    _jax.config.update("jax_compilation_cache_dir", compile_cache_dir())
 
 from .mesh import BoundingBox, Mesh, load_mesh
 from .triangle import TriangleDataSoA, calculate_mesh_triangle_data

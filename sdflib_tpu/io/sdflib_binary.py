@@ -322,7 +322,7 @@ def _load_exact_bin(r: "_Reader"):
     # Lists keep the reference's order (NOT distance-sorted): leaf_centers
     # is deliberately absent from the state so _load_state disabled the
     # sorted-list early exit; the centers are still useful metadata
-    # (host-resident: a device (L, 3) array lane-pads 3 -> 128).
+    # (host-resident, like the builder's).
     sdf.leaf_centers = (
         np.stack(leaf_centers).astype(np.float32)
         if leaf_centers

@@ -1,6 +1,6 @@
 """Triangle mesh container, bounding box, and mesh file IO.
 
-TPU-native re-design of the reference geometry layer
+JAX re-design of the reference geometry layer
 (reference: include/SdfLib/utils/Mesh.h:16-106, src/utils/Mesh.cpp:9-139).
 The mesh lives on host as numpy arrays; device kernels consume the
 precomputed per-triangle SoA (see sdflib_tpu/triangle.py).

@@ -1,11 +1,11 @@
 """Native C ABI shim: engine-side SDF queries without Python/JAX.
 
-ctypes wrapper over the C++ shared library (sdflib_c.cpp), the TPU
+ctypes wrapper over the C++ shared library (sdflib_c.cpp), the
 framework's equivalent of the reference's SdfLibUnity FFI surface
 (reference: src/tools/SdfLibUnity/SdfExportFunc.h:16-59). Loads and
 evaluates all three .bin formats (GRID / OCTREE / EXACT_OCTREE) with the
 format-generic getDistance dispatch the reference exposes. Building
-structures from a mesh stays on the Python/TPU side (the builders are
+structures from a mesh stays on the Python/JAX side (the builders are
 JAX programs); build there, serialize, consume anywhere. The library is
 compiled on demand with g++ and cached next to the source.
 """

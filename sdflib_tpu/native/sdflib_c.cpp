@@ -24,11 +24,11 @@
 //                      not thread-safe), the scratch here is thread_local so
 //                      the OpenMP batch entry point is safe.
 //
-// BUILDING structures from a mesh requires the Python/TPU side (the
+// BUILDING structures from a mesh requires the Python/JAX side (the
 // level-synchronous builders are JAX programs); the shim's role is loading,
 // evaluating, and exposing raw arrays for engine-side upload — the
 // reference's createOctreeSdf-from-mesh has no native equivalent here by
-// design (build on TPU, serialize, consume anywhere).
+// design (build on the accelerator, serialize, consume anywhere).
 //
 // Build: g++ -O2 -shared -fPIC -fopenmp -o _sdflib_c.so sdflib_c.cpp
 #include <cstdint>

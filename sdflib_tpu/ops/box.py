@@ -4,7 +4,7 @@ Mirrors BoundingBox::getDistance (reference utils/Mesh.h:42-63), including
 the reference's gradient-variant quirks (it uses the raw point instead of
 centering it and the full size instead of the half size,
 utils/Mesh.h:48-61) so out-of-box queries match the reference bit-for-bit
-in behavior. All math elementwise fp32 (VPU).
+in behavior. All math elementwise fp32.
 """
 from __future__ import annotations
 

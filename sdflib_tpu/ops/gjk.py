@@ -1,7 +1,7 @@
 """Batched convex distance tests (GJK role): box-vs-triangle culling
 predicates.
 
-TPU-native re-design of the reference GJK module
+JAX re-design of the reference GJK module
 (reference: src/utils/GJK.cpp — simplex GJK :9-310, box-triangle
 ``getMinDistance`` :476-517, and the Frank-Wolfe style ``IsNearMinimize``
 :564-600 capped at 15 iterations, the variant the influence strategies
@@ -18,8 +18,7 @@ polyhedra is always realized vertex-vs-face or edge-vs-edge, so
              36 triangle-edge-to-box-edge distances )
     (= 0 when the 13-axis SAT test reports overlap)
 
-with every term a closed form and the whole batch elementwise fp32 on the
-VPU. This is *tighter* than the reference's 15-iteration bound at similar
+with every term a closed form and the whole batch elementwise fp32. This is *tighter* than the reference's 15-iteration bound at similar
 cost. The Frank-Wolfe minimizer is kept for general convex hulls (the
 influence-region tests over box (+) per-vertex-radius hulls,
 GJK.cpp:661-867).

@@ -1,6 +1,6 @@
 """Leaf value models: trilinear and tricubic polynomial interpolation.
 
-TPU-native re-design of the reference InterpolationMethods
+JAX re-design of the reference InterpolationMethods
 (reference: include/SdfLib/InterpolationMethods.h:48-143 TriLinear,
 :267-455 TriCubic). The reference hardcodes a 64x64 Hermite solve generated
 offline by the CalculateInterpolationParameters tool
@@ -20,7 +20,8 @@ Conventions (identical to the reference):
   * World-space derivatives are rescaled into unit-cube coordinates by
     nodeSize powers before the solve (InterpolationMethods.h:301-312).
 
-All eval code is elementwise VPU fp32 (no MXU) so distance parity holds.
+All eval code is elementwise fp32 (no matrix unit, so no TF32 rounding) so
+distance parity holds.
 """
 from __future__ import annotations
 
@@ -182,7 +183,8 @@ def tricubic_fit(corner_values, node_size):
     scaled = corner_values * scale[..., None, :]
     data = scaled.reshape(scaled.shape[:-2] + (64,))
     M = jnp.asarray(TRICUBIC_MATRIX, dtype=data.dtype)
-    # (64,64) x (...,64): elementwise-sum contraction; on TPU prefer fp32.
+    # (64,64) x (...,64): HIGHEST keeps the float32 contraction out of TF32
+    # (or bf16) on an accelerator's matrix unit.
     return jnp.einsum(
         "cd,...d->...c", M, data, precision=jax.lax.Precision.HIGHEST
     )
@@ -217,7 +219,7 @@ def _monomials(xv, yv, zv):
 
 
 def tricubic_interpolate(coeffs, frac):
-    """coeffs (..., 64), frac (..., 3) -> (...). VPU fp32 math."""
+    """coeffs (..., 64), frac (..., 3) -> (...). Elementwise fp32 math."""
     xv, yv, zv = _power_vectors(frac)
     mono = _monomials(xv, yv, zv)
     return jnp.sum(coeffs * mono, axis=-1)

@@ -1,9 +1,9 @@
 """Batched point-triangle distance kernels (the #1 hot loop).
 
-TPU-native re-design of the reference scalar kernels
+JAX re-design of the reference scalar kernels
 (reference: include/SdfLib/utils/TriangleUtils.h:76-401). The branchy
 Voronoi-region classification becomes a branchless ``where``-ladder over a
-region code so it vectorizes on the VPU; tie-breaking (``>=`` vs ``<=``)
+region code so it vectorizes; tie-breaking (``>=`` vs ``<=``)
 matches the reference exactly since sign flips at region boundaries would
 break allclose parity (SURVEY.md "hard parts").
 
@@ -50,14 +50,15 @@ V1, V2, V3, E1, E2, E3, FACE = 0, 1, 2, 3, 4, 5, 6
 
 
 def _dot(a, b):
-    """Elementwise dot. Deliberately NOT ``a @ b``: on TPU the MXU would be
-    engaged with default (bf16) precision, destroying distance parity
-    (SURVEY.md "Numerics"). sum(a*b) stays on the VPU in fp32."""
+    """Elementwise dot. Deliberately NOT ``a @ b``: a float32 matrix product
+    may run in TF32 on a GPU (bf16 on other accelerators) at default
+    precision, destroying distance parity (SURVEY.md "Numerics").
+    sum(a*b) stays elementwise fp32."""
     return jnp.sum(a * b, axis=-1)
 
 
 def _matvec(m, v):
-    """(3,3) @ (3,) on the VPU in fp32 (see _dot)."""
+    """(3,3) @ (3,) as elementwise fp32 (see _dot)."""
     return jnp.sum(m * v[..., None, :], axis=-1)
 
 
@@ -106,8 +107,7 @@ def _feature_offsets(pp, tri: TriangleDataSoA):
 
 def _select_by_code(code, cands):
     """7-way select as a where-ladder. A ``stack(...)[code]`` gather would
-    materialize a (..., 7) array whose last dim XLA pads to 128 lanes on
-    TPU (an 18x memory blowup inside the brute-force sweeps); the ladder
+    materialize a (..., 7) array inside the brute-force sweeps; the ladder
     stays fully elementwise."""
     out = cands[6]
     for k in range(5, -1, -1):
@@ -258,10 +258,10 @@ def sq_dist_from_field_fn(px, py, pz, f):
 
     px/py/pz: broadcastable point coords; ``f(r)`` returns packed field row
     ``r`` (``pack_triangle_fields`` layout) broadcastable against them. All
-    elementwise fp32 (VPU) with the exact tie-breaking of
+    elementwise fp32 with the exact tie-breaking of
     TriangleUtils.h:76-135. The accessor indirection lets callers pick a
-    layout that avoids relayouts (lane-broadcast tiles in Pallas, trailing
-    field axes in XLA)."""
+    layout that avoids relayouts (field vectors in the Pallas kernel,
+    trailing field axes in XLA)."""
 
     dx = px - f(_F_ORIGIN)
     dy = py - f(_F_ORIGIN + 1)
@@ -640,14 +640,35 @@ def _gather_tris(tris: TriangleDataSoA, idx):
     return TriangleDataSoA(*(jnp.asarray(f)[idx] for f in tris))
 
 
+def _on_one_gpu(points) -> bool:
+    """True when ``points`` lives on exactly one GPU: where the Triton
+    kernel compiles and needs no partitioning. Numpy inputs go to the
+    default device; tracers and multi-device arrays stay on XLA."""
+    if isinstance(points, jax.core.Tracer):
+        return False
+    if isinstance(points, jax.Array):
+        devs = points.devices()
+    else:
+        dev = jax.config.jax_default_device or jax.devices()[0]
+        if isinstance(dev, str):
+            return dev == "gpu" or dev == "cuda"
+        devs = {dev}
+    return len(devs) == 1 and next(iter(devs)).platform == "gpu"
+
+
 def _nearest_dispatch(points, tris: TriangleDataSoA, chunk: int, impl: str):
-    """impl: "auto" (Pallas on TPU, XLA scan elsewhere), "pallas", "xla"."""
+    """impl: "auto" (the fused Triton kernel of ops/pallas_kernels.py for
+    points on one GPU, where it was measured faster; the XLA scan above
+    otherwise), "pallas" (compiled for the GPU; fails elsewhere) or
+    "xla"."""
     if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
+        impl = "pallas" if _on_one_gpu(points) else "xla"
     if impl == "pallas":
         from .pallas_kernels import nearest_triangle_pallas
 
         return nearest_triangle_pallas(points, tris)
+    if impl != "xla":
+        raise ValueError(f"unknown nearest-triangle impl {impl!r}")
     return nearest_triangle(points, tris, chunk=chunk)
 
 
@@ -666,7 +687,7 @@ def _eval_winner_signed_grad(points, tris: TriangleDataSoA, idx):
 
 
 def signed_distance_batch(
-    points, tris: TriangleDataSoA, chunk: int = 512, impl: str = "auto"
+    points, tris: TriangleDataSoA, chunk: int = 512, impl: str = "auto",
 ):
     """Exact signed distance for a batch of points (RealSdf.cpp:10-25)."""
     _, idx = _nearest_dispatch(points, tris, chunk, impl)
@@ -674,7 +695,7 @@ def signed_distance_batch(
 
 
 def signed_distance_grad_batch(
-    points, tris: TriangleDataSoA, chunk: int = 512, impl: str = "auto"
+    points, tris: TriangleDataSoA, chunk: int = 512, impl: str = "auto",
 ):
     """Exact signed distance + analytic gradient for a batch of points."""
     _, idx = _nearest_dispatch(points, tris, chunk, impl)

@@ -2,11 +2,11 @@
 
 The reference parallelizes with OpenMP threads inside one host
 (reference: src/sdf/OctreeSdfDepthFirst.h:417-527, OpenMP task-per-subtree)
-and has no distributed backend (SURVEY.md S2.4). The TPU-native scaling
-model (SURVEY.md S5.7-5.8) is: query points / rays are pure data parallel
-over chips, SDF structures (flat arrays) are replicated when they fit,
-and coefficient gradients all-reduce over ICI — all expressed with
-jax.sharding + jit, letting XLA insert the collectives.
+and has no distributed backend (SURVEY.md S2.4). The scaling model here
+(SURVEY.md S5.7-5.8) is: query points / rays are pure data parallel over
+devices, SDF structures (flat arrays) are replicated when they fit, and
+coefficient gradients all-reduce — all expressed with jax.sharding + jit,
+letting XLA insert the collectives (NCCL on GPUs).
 """
 from .mesh import (
     default_mesh,

@@ -17,10 +17,12 @@ RAY_AXIS = "rays"
 
 
 def initialize_distributed(**kwargs) -> None:
-    """Multi-host bring-up: jax.distributed.initialize with the framework's
-    defaults (SURVEY.md S5.8 — one global mesh, ICI for intra-slice
-    collectives, DCN across hosts). Call once per process before building
-    meshes; on single-host setups it is a no-op."""
+    """Multi-process bring-up: jax.distributed.initialize(**kwargs), once
+    per process before building meshes, for one global mesh over every
+    process's GPUs (collectives go to NCCL: NVLink within a host, the
+    network across hosts). Pass ``coordinator_address``,
+    ``num_processes`` and ``process_id`` where no cluster manager
+    provides them. Without a coordinator (one process) it is a no-op."""
     try:
         jax.distributed.initialize(**kwargs)
     except (RuntimeError, ValueError):

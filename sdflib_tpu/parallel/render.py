@@ -2,7 +2,7 @@
 
 The reference dispatches one GL compute workgroup per 16x16 pixel tile on
 a single GPU (reference: src/render_engine/RenderSdf.cpp:187); here the
-ray batch is sharded over TPU chips and each chip marches its rays against
+ray batch is sharded over devices and each device marches its rays against
 a replicated octree — no inter-chip traffic until the image is gathered.
 
 Implementation: jax.shard_map over the host-sync-free fused trace
@@ -11,12 +11,12 @@ in the march scheduler is LOCAL to its shard. The previous version ran
 `trace_octree` (whose scheduler syncs an active count to the host between
 rounds) on globally-sharded arrays; under GSPMD its full-array sorts and
 prefix slices became cross-device resharding collectives and total
-throughput COLLAPSED 7x from 1 to 8 devices (SCALING_r04.json) while pure
-shard_map queries stayed flat.
+throughput collapsed from 1 to 8 virtual devices while pure shard_map
+queries stayed flat.
 """
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 
 import numpy as np
 import jax
@@ -33,6 +33,20 @@ from .mesh import RAY_AXIS, default_mesh, replicated, sharded_rays
 from .query import _device_put_structure
 
 __all__ = ["sharded_trace"]
+
+
+@lru_cache(maxsize=32)
+def _sharded_trace_program(mesh, **statics):
+    """The jitted shard_map of the fused trace, one per mesh and static
+    configuration: built afresh, it would be traced and compiled again on
+    every call."""
+    shd = P(RAY_AXIS)
+    return jax.jit(jax.shard_map(
+        partial(_trace_rays_fused, **statics),
+        mesh=mesh,
+        in_specs=(P(), P(), P(), shd, shd, shd) + (P(),) * 6,
+        out_specs=(shd, shd, shd, shd, shd),
+    ))
 
 
 def sharded_trace(
@@ -106,8 +120,8 @@ def sharded_trace(
 
     box_size = float(octree.box.size[0])
     thr = float(getattr(octree, "termination_threshold", 1e-3))
-    fn = partial(
-        _trace_rays_fused,
+    mapped = _sharded_trace_program(
+        mesh,
         levels=octree.max_depth - octree.start_depth,
         num_coeff=octree.num_coefficients,
         interpolation=octree.interpolation,
@@ -122,13 +136,6 @@ def sharded_trace(
             octree.max_depth if thin_grid is not None else None
         ),
     )
-    shd = P(RAY_AXIS)
-    mapped = jax.jit(jax.shard_map(
-        fn,
-        mesh=mesh,
-        in_specs=(P(), P(), P(), shd, shd, shd) + (P(),) * 6,
-        out_specs=(shd, shd, shd, shd, shd),
-    ))
     hit, pos, acc, normal, iters = mapped(
         octree.octree_data, grid_arr, thin_arr, o, d, active0,
         jnp.asarray(octree.box.min),

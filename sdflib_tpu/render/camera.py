@@ -1,6 +1,6 @@
 """Perspective camera: batched ray generation.
 
-TPU-native equivalent of the reference's camera + per-pixel ray setup
+JAX equivalent of the reference's camera + per-pixel ray setup
 (reference: src/render_engine/Camera.h:11-52 and the ray construction in
 shaders/sdfOctreeRender.comp:429-436: pixel center on the near plane,
 transformed by the inverse view-model matrix).

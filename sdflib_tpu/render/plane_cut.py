@@ -1,6 +1,6 @@
 """Plane-cut visualization of an octree SDF (SdfViewer parity).
 
-TPU-native re-design of the reference plane-cut fragment shader
+JAX re-design of the reference plane-cut fragment shader
 (reference: src/render_engine/shaders/sdfOctreePlane.frag:1-181): a plane
 through the domain is sampled per pixel; color = 7-color distance palette
 normalized by octreeValueRange, with isosurface line, isolines, and octree

@@ -1,7 +1,7 @@
 """Shading for sphere-traced renders: normal shading, Blinn-Phong/PBR-lite,
 ambient occlusion, soft shadows.
 
-TPU-native equivalent of the reference's shading stack
+JAX equivalent of the reference's shading stack
 (reference: shaders/sdfOctreeRender.comp — getAO :258-271, softshadow
 :273-309, Cook-Torrance mapColor :329-389; palette :410-427). All shading
 runs as batched jnp over the hit buffers; AO and soft shadows re-march the

@@ -1,6 +1,6 @@
 """Dense uniform grid SDF with trilinear queries.
 
-TPU-native re-design of the reference UniformGridSdf
+JAX re-design of the reference UniformGridSdf
 (reference: include/SdfLib/UniformGridSdf.h:15-74,
 src/sdf/UniformGridSdf.cpp:9-118). Grid layout matches the reference:
 ``grid_size`` corner samples per axis spaced ``cell_size`` apart starting at

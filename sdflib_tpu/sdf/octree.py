@@ -1,12 +1,12 @@
 """Approximate octree SDF with polynomial leaves — structure + queries.
 
-TPU-native re-design of the reference OctreeSdf
+JAX re-design of the reference OctreeSdf
 (reference: include/SdfLib/OctreeSdf.h:20-292, src/sdf/OctreeSdf.cpp:18-152).
 The flat u32 array layout is kept identical in meaning (leaf bit 31,
 29-bit children/coefficient index, dense z-major start grid first,
 coefficients bitcast inline) so serialized structures are interchangeable
 with the reference; on device the descent is a fixed-depth masked loop
-(bounded by max_depth) over the whole query batch — the TPU-shaped
+(bounded by max_depth) over the whole query batch — the batched
 equivalent of the per-sample pointer walk (OctreeSdf.cpp:108-116).
 """
 from __future__ import annotations
@@ -41,8 +41,7 @@ _RULES = {"trapezoid", "simpson", "by_distance", "none"}
 
 def _select8(rows, lane):
     """rows (..., 8), lane (...,) in [0,8) -> (...,). One-hot sum select:
-    an in-row 8-way pick stays on the VPU (a take_along_axis would lower to
-    a scalar-core gather on TPU)."""
+    an in-row 8-way pick as elementwise work instead of a second gather."""
     oh = lane[..., None] == jnp.arange(8, dtype=lane.dtype)
     return jnp.sum(jnp.where(oh, rows, jnp.zeros_like(rows)), axis=-1)
 
@@ -71,8 +70,8 @@ def _octree_query(
 
     fast=True requires the aligned layout our builders emit (children
     blocks 8-aligned, coefficient blocks num_coeff-aligned, length a
-    multiple of 64): every fetch is then a contiguous ROW gather, which
-    XLA lowers ~100x faster on TPU than per-element gathers. fast=False
+    multiple of 64): every fetch is then a contiguous ROW gather instead of
+    scattered per-element gathers. fast=False
     is the layout-agnostic fallback for foreign (reference .bin) arrays.
     """
     pts = points
@@ -196,7 +195,7 @@ def _octree_query_grid(
 ):
     """O(1)-descent query via a dense leaf-id grid at max_depth resolution:
     the per-point tree walk (OctreeSdf.cpp:108-116) becomes ONE 8-byte row
-    gather — a pure TPU redesign trading HBM for gather count."""
+    gather — a redesign trading device memory for gather count."""
     pts = points
     g = 1 << grid_depth
     rel = (pts - box_min) / box_size            # [0,1) inside the box

@@ -1,6 +1,6 @@
 """CONTINUITY octree builder (approximate C0 across leaf faces).
 
-TPU-native re-design of the reference's breadth-first no-delay continuity
+JAX re-design of the reference's breadth-first no-delay continuity
 algorithm (reference: src/sdf/OctreeSdfBreadthFirstNoDelay.h:83-1226).
 The reference threads 6 face-neighbor pointers down the tree per node and
 uses 24 bit-masks to find midpoint samples shared with already-terminated
@@ -8,7 +8,7 @@ leaves; those samples are overwritten with the neighbor leaf's interpolated
 value when the difference is within the termination threshold, otherwise
 the offending leaf is queued for re-subdivision (:419-515, :740-1176).
 
-The TPU-shaped equivalent here is level-synchronous and fully vectorized:
+The batched equivalent here is level-synchronous and fully vectorized:
 
   * every level is one batched device computation over all active nodes
     (the same ``_level_chunk`` kernel as the NO_CONTINUITY path);
@@ -301,9 +301,8 @@ def build_octree_continuity(
         N, K = cand_idx.shape
         # Candidate width quantized to 8*4^j (not every pow2): each
         # distinct (C, Kp) is a fresh executable whose per-process
-        # first call costs 15-120 s through the remote transport
-        # (PERF.md S0b); x4 steps halve the variant count for <=2x
-        # masked pad evals in the (cheap) cull portion.
+        # first call pays a compile; x4 steps halve the variant count
+        # for <=2x masked pad evals in the (cheap) cull portion.
         Kp = 8
         while Kp < K:
             Kp *= 4

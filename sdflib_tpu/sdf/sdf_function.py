@@ -1,6 +1,6 @@
 """Abstract SDF interface + format-dispatched serialization.
 
-TPU-native re-design of the reference SdfFunction
+JAX re-design of the reference SdfFunction
 (reference: include/SdfLib/SdfFunction.h:16-57, src/sdf/SdfFunction.cpp:9-79).
 All queries are batched: ``get_distance(points)`` takes (..., 3) and returns
 (...). Serialization uses an .npz container with a format tag first — the
@@ -25,7 +25,7 @@ class SdfFormat(str, Enum):
     GRID = "grid"
     OCTREE = "octree"
     EXACT_OCTREE = "exact_octree"
-    # TPU additions: tile-sharded structures (no reference counterpart —
+    # Additions: tile-sharded structures (no reference counterpart —
     # the reference is single-node; SURVEY.md S5.7).
     OCTREE_TILED = "octree_tiled"
     EXACT_OCTREE_TILED = "exact_octree_tiled"

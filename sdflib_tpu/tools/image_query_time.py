@@ -3,7 +3,7 @@
 Parity with the reference ImageQueryTime tool
 (src/tools/ImageQueryTime/main.cpp:255-403): a width^2 plane of query
 points rendered to PNGs. The reference times each query individually on
-the CPU; on TPU queries run batched, so the per-pixel "time" image is
+the CPU; here queries run batched, so the per-pixel "time" image is
 replaced by a per-pixel COST proxy (octree leaf depth — the number of
 descent steps paid for that pixel) plus the batched wall-clock throughput,
 and the distance-value image matches the reference's value output.

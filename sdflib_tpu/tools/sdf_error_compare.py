@@ -4,7 +4,7 @@ Parity with the reference SdfErrorCompare tool
 (src/tools/SdfErrorCompare/main.cpp:382-425): N million uniform samples,
 RMSE/MAE per |exact distance| bucket, plus overall metrics and throughput
 for each structure under comparison. External baselines (ICG/CGAL/OpenVDB)
-are compile-gated in the reference and out of scope on TPU; any number of
+are compile-gated in the reference and out of scope here; any number of
 our own containers can be compared against the exact reference instead.
 """
 from __future__ import annotations

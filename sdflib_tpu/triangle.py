@@ -1,6 +1,6 @@
 """Per-triangle precomputation: local frames + pseudonormals (SoA layout).
 
-TPU-native re-design of the reference TriangleData preprocessing
+JAX re-design of the reference TriangleData preprocessing
 (reference: include/SdfLib/utils/TriangleUtils.h:20-72 and
 src/utils/TriangleUtils.cpp:7-428). The output is a struct-of-arrays pytree
 so the batched distance kernels (sdflib_tpu/ops/point_triangle.py) can

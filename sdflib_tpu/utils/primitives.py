@@ -1,6 +1,6 @@
 """Procedural test meshes (icosphere, cube, plane, torus).
 
-TPU-native equivalent of the reference PrimitivesFactory
+JAX equivalent of the reference PrimitivesFactory
 (reference: src/utils/PrimitivesFactory.cpp, include/SdfLib/utils/
 PrimitivesFactory.h:11-14). These are the standard meshes used by tests and
 benchmarks since the repo carries no model assets.

@@ -315,3 +315,178 @@ def test_auto_scan_impl_flips_for_sparse_batches():
     assert not ex._scan_impl_auto
     d_win = np.asarray(ex.get_distance(small))      # pinned: windows
     np.testing.assert_array_equal(d_auto, d_win)
+
+
+@pytest.fixture(scope="module")
+def torus_mesh():
+    return make_torus(R=0.3, r=0.12, nu=20, nv=12)
+
+
+@pytest.fixture(scope="module")
+def torus_sdf(torus_mesh):
+    """One shared structure for the impl-parity tests (builds dominate
+    their wall time; scan settings are restored by each test)."""
+    mesh = torus_mesh
+    box = mesh.bounding_box.add_margin(0.1)
+    return ExactOctreeSdf(
+        mesh, box, max_depth=4, start_depth=1, min_triangles_per_node=16
+    )
+
+
+def test_fused_query_impls_match_xla(torus_sdf):
+    """End-to-end: ExactOctreeSdf distances under the window scan equal
+    the grouped-scan distances on a real structure."""
+    sdf = torus_sdf
+    rng = np.random.default_rng(1)
+    pts = rng.uniform(-0.5, 0.5, size=(768, 3)).astype(np.float32)
+    sdf.set_scan_impl("xla")
+    d_xla = np.asarray(sdf.get_distance(pts))
+    for impl in ("xla_window",):
+        sdf.set_scan_impl(impl)
+        d_imp = np.asarray(sdf.get_distance(pts))
+        np.testing.assert_allclose(d_imp, d_xla, rtol=1e-5, atol=1e-6)
+
+    # gradients route through the winner ids: cover every backend
+    sdf.set_scan_impl("xla")
+    _, g_ref = sdf.get_distance_and_gradient(pts[:128])
+    g_ref = np.asarray(g_ref)
+    for impl in ("xla_window",):
+        sdf.set_scan_impl(impl)
+        _, g_imp = sdf.get_distance_and_gradient(pts[:128])
+        np.testing.assert_allclose(
+            np.asarray(g_imp), g_ref, rtol=1e-5, atol=1e-6
+        )
+    sdf.set_scan_impl("xla")
+
+
+def test_xla_window_widths_and_sparse_batches(torus_sdf):
+    """The window scan must stay exact for every window width and for
+    SPARSE batches whose windows straddle distant leaves (the gap-jump
+    path: rows of non-member leaves are skipped, not truncated)."""
+    sdf = torus_sdf
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(-0.5, 0.5, size=(512, 3)).astype(np.float32)
+    sdf.set_scan_impl("xla")
+    d_xla = np.asarray(sdf.get_distance(pts))
+    sdf.set_scan_impl("xla_window")
+    for width in (4, 16, 64):
+        sdf.window_width = width
+        d_w = np.asarray(sdf.get_distance(pts))
+        np.testing.assert_allclose(d_w, d_xla, rtol=1e-5, atol=1e-6)
+    # a handful of points scattered over the whole domain: every window
+    # spans many distant leaves
+    sdf.window_width = 8
+    few = rng.uniform(-0.5, 0.5, size=(17, 3)).astype(np.float32)
+    sdf.set_scan_impl("xla")
+    d_ref = np.asarray(sdf.get_distance(few))
+    sdf.set_scan_impl("xla_window")
+    d_few = np.asarray(sdf.get_distance(few))
+    np.testing.assert_allclose(d_few, d_ref, rtol=1e-5, atol=1e-6)
+    sdf.set_scan_impl("xla")
+    sdf.window_width = 8
+
+
+def test_wide_scan_chunk_repack(torus_sdf):
+    """chunk=128 repacks the CSR into wider spans; distances must be
+    unchanged under every scan backend."""
+    sdf = torus_sdf
+    rng = np.random.default_rng(2)
+    pts = rng.uniform(-0.5, 0.5, size=(1024, 3)).astype(np.float32)
+    sdf.set_scan_impl("xla")
+    d64 = np.asarray(sdf.get_distance(pts))
+    sdf.set_scan_chunk(128)
+    try:
+        d128 = np.asarray(sdf.get_distance(pts))
+        np.testing.assert_allclose(d128, d64, rtol=1e-6, atol=1e-7)
+        for impl in ("xla_window",):
+            sdf.set_scan_impl(impl)
+            d128i = np.asarray(sdf.get_distance(pts))
+            np.testing.assert_allclose(d128i, d64, rtol=1e-6, atol=1e-7)
+    finally:
+        sdf.set_scan_impl("xla")
+        sdf.set_scan_chunk(64)  # restore for other tests on the fixture
+
+
+def test_precise_cull_keeps_each_points_nearest_candidate():
+    """The precise cull takes its region radii by an exact select (a
+    float32 one-hot contraction could round in TF32 on a GPU): every kept
+    set must still hold the nearest candidate of every point in its
+    node, and nothing outside the valid candidates."""
+    import jax
+    import jax.numpy as jnp
+
+    from sdflib_tpu.ops.point_triangle import (
+        pack_triangle_fields,
+        sq_dist_packed,
+    )
+    from sdflib_tpu.sdf.exact_octree import _precise_cull_chunk
+    from sdflib_tpu.triangle import calculate_mesh_triangle_data
+
+    tris = jax.tree.map(
+        jnp.asarray,
+        calculate_mesh_triangle_data(make_torus(R=0.3, r=0.12, nu=16, nv=8)),
+    )
+    packed = pack_triangle_fields(tris)
+    T = packed.shape[0]
+    rng = np.random.default_rng(3)
+    C, K, half = 8, 64, 0.06
+    centers = rng.uniform(-0.3, 0.3, (C, 3)).astype(np.float32)
+    # each node's candidates: its K nearest triangles by center distance
+    sq_c = np.asarray(
+        sq_dist_packed(
+            centers[:, 0:1], centers[:, 1:2], centers[:, 2:3],
+            np.asarray(packed)[None, :, :],
+        )
+    )
+    cand = np.argsort(sq_c, axis=1)[:, :K].astype(np.int32)
+    valid = np.ones((C, K), bool)
+    valid[:, -5:] = False
+    keep, cnt, _ = _precise_cull_chunk(
+        packed, tris.v_world, jnp.asarray(centers), jnp.asarray(cand),
+        jnp.asarray(valid), jnp.float32(half),
+    )
+    keep, cnt = np.asarray(keep), np.asarray(cnt)
+    assert not (keep & ~valid).any()
+    np.testing.assert_array_equal(cnt, keep.sum(axis=1))
+    assert (cnt < valid.sum(axis=1)).any(), "the cull removed nothing"
+
+    fields = np.asarray(packed)[cand]                 # (C, K, 19)
+    pts = centers[:, None, :] + rng.uniform(
+        -half, half, (C, 256, 3)
+    ).astype(np.float32)
+    sq = np.asarray(
+        sq_dist_packed(
+            pts[..., 0:1], pts[..., 1:2], pts[..., 2:3], fields[:, None]
+        )
+    )                                                 # (C, 256, K)
+    sq = np.where(valid[:, None, :], sq, np.inf)
+    best = sq.min(axis=2, keepdims=True)
+    # every candidate tying for the minimum is acceptable
+    kept_best = np.any((sq <= best) & keep[:, None, :], axis=2)
+    assert kept_best.all()
+
+
+def test_bucket_budget_rebuild_keeps_queries_exact(torus_sdf, torus_mesh):
+    """The byte budget travels with the saved state and picks the scan
+    tables' tier when they are rebuilt: a budget too small for any dense
+    tier leaves the id-only fallback, the original one the dense tables.
+    Distances stay the brute force's either way, and the window scan
+    needs the dense tables."""
+    state = torus_sdf._state_arrays()
+    rng = np.random.default_rng(11)
+    pts = rng.uniform(-0.5, 0.5, size=(600, 3)).astype(np.float32)
+    ref = np.asarray(RealSdf(torus_mesh).get_distance(pts))
+
+    small = ExactOctreeSdf._from_state_arrays(
+        {**state, "bucket_byte_budget": np.int64(1 << 10)})
+    assert small.bucket_fields is None
+    np.testing.assert_allclose(
+        np.asarray(small.get_distance(pts)), ref, rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="dense"):
+        small.set_scan_impl("xla_window")
+
+    dense = ExactOctreeSdf._from_state_arrays(state)
+    assert dense.bucket_fields is not None
+    dense.set_scan_impl("xla_window")
+    np.testing.assert_allclose(
+        np.asarray(dense.get_distance(pts)), ref, rtol=0, atol=1e-6)

@@ -1,5 +1,5 @@
 """Box-triangle distance vs sampled ground truth (GJKtest parity,
-reference src/tools/GJKtest/main.cpp). The TPU implementation enumerates
+reference src/tools/GJKtest/main.cpp). The batched implementation enumerates
 feature pairs exactly, so tolerances are tight; the Frank-Wolfe variant
 is only checked as an upper bound."""
 import numpy as np

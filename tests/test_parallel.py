@@ -93,6 +93,30 @@ def test_sharded_trace_matches(octree, mesh8):
     )
 
 
+def test_sharded_trace_compiles_once(octree, mesh8):
+    """A second call with the same mesh and settings reuses the compiled
+    program: a warm sharded_trace compiles nothing."""
+    origins = np.tile([[0.0, 0.0, -1.2]], (64, 1)).astype(np.float32)
+    origins[:, 0] = np.linspace(-0.3, 0.3, 64)
+    dirs = np.tile([[0.0, 0.0, 1.0]], (64, 1)).astype(np.float32)
+    r0 = parallel.sharded_trace(octree, origins, dirs, mesh8, max_iters=64)
+    compiles = []
+
+    def listen(event, duration, **kwargs):
+        if event == "/jax/core/compile/backend_compile_duration":
+            compiles.append(duration)
+
+    jax.monitoring.register_event_duration_secs_listener(listen)
+    try:
+        r1 = parallel.sharded_trace(octree, origins, dirs, mesh8,
+                                    max_iters=64)
+        jax.block_until_ready(r1.depth)
+    finally:
+        jax.monitoring.unregister_event_duration_listener(listen)
+    assert compiles == []
+    np.testing.assert_array_equal(np.asarray(r0.depth), np.asarray(r1.depth))
+
+
 def test_data_parallel_fit_step_reduces_loss(octree, mesh8):
     rng = np.random.default_rng(5)
     pts = rng.uniform(-0.35, 0.35, (2048, 3)).astype(np.float32)
@@ -111,15 +135,13 @@ def test_data_parallel_fit_step_reduces_loss(octree, mesh8):
 
 
 def test_scaling_throughput_bounds():
-    """BASELINE row 3 (>= 85% linear rays/s scaling 1 -> N) as far as this
-    environment allows: on the virtual 8-device CPU mesh all devices share
-    ONE physical core, so per-device efficiency is 1/N by construction and
-    the meaningful plumbing assertion is that TOTAL sharded throughput
-    stays close to the single-device total (the sharding itself must not
-    shrink the pie) — for QUERIES and for RAYS (the r4 curve showed rays
-    collapsing 7x while queries stayed flat; the shard_map'd fused trace
-    fixes that and this bound keeps it fixed). On real multi-chip TPU the
-    >= 85%/device bar applies. The measured curve is SCALING_r05.json."""
+    """Scaling plumbing on the virtual 8-device CPU mesh: all devices
+    share the host's cores, so per-device efficiency says nothing, and the
+    meaningful assertion is that TOTAL sharded throughput stays close to
+    the single-device total (the sharding itself must not shrink the pie)
+    — for QUERIES and for RAYS (rays once collapsed 7x under GSPMD while
+    queries stayed flat; the shard_map'd fused trace fixes that and this
+    bound keeps it fixed). Scaling on GPUs is measured on the cards."""
     import time
 
     mesh_geo = make_icosphere(subdivisions=1, radius=0.35)
@@ -164,17 +186,11 @@ def test_scaling_throughput_bounds():
             best = min(best, time.perf_counter() - t0)
         ray_rates[c] = nr / best
     n_dev = len(devices)
-    if jax.default_backend() == "tpu" and n_dev > 1:
-        eff = rates[n_dev] / (rates[1] * n_dev)
-        assert eff >= 0.85, f"per-device query scaling efficiency {eff:.2%}"
-        reff = ray_rates[n_dev] / (ray_rates[1] * n_dev)
-        assert reff >= 0.85, f"per-device ray scaling efficiency {reff:.2%}"
-    else:
-        # shared-core virtual mesh: sharding overhead must not eat the pie
-        total = rates[n_dev] / rates[1]
-        assert total >= 0.35, f"sharded query total collapsed to {total:.2%}"
-        rtotal = ray_rates[n_dev] / ray_rates[1]
-        assert rtotal >= 0.35, f"sharded ray total collapsed to {rtotal:.2%}"
+    # shared-core virtual mesh: sharding overhead must not eat the pie
+    total = rates[n_dev] / rates[1]
+    assert total >= 0.35, f"sharded query total collapsed to {total:.2%}"
+    rtotal = ray_rates[n_dev] / ray_rates[1]
+    assert rtotal >= 0.35, f"sharded ray total collapsed to {rtotal:.2%}"
 
 
 def test_sharded_exact_query_id_only_structure():

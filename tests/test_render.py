@@ -14,7 +14,7 @@ from sdflib_tpu.render import (
     write_png,
 )
 from sdflib_tpu.sdf.octree import OctreeSdf
-from sdflib_tpu.utils.primitives import make_icosphere
+from sdflib_tpu.utils.primitives import make_icosphere, make_torus
 
 
 @pytest.fixture(scope="module")
@@ -151,3 +151,33 @@ def test_pyramid_schedule_matches_dynamic(octree):
     hp = np.asarray(res_p.depth)[np.asarray(res_p.hit)]
     hd = np.asarray(res_d.depth)[np.asarray(res_d.hit)]
     np.testing.assert_allclose(hp, hd, rtol=1e-5, atol=1e-6)
+
+
+def test_octree_trace_never_steps_through_the_surface():
+    """trace_octree's grid steps vs a plain march on the same SDF. Only
+    finest CELLS are proven surface-free, not the leaves around them: an
+    exit step to the box of a large leaf holding free cells and the
+    surface carried rays through it (hits ~1e-2 too deep at this size).
+    Where both hit, depths agree to the termination threshold."""
+    mesh = make_torus(R=0.3, r=0.12, nu=96, nv=48)
+    box = mesh.bounding_box.add_margin(
+        0.2 * float(np.max(mesh.bounding_box.size)))
+    oct_ = OctreeSdf(mesh, box, max_depth=6, start_depth=2,
+                     termination_threshold=1e-3, init_algorithm="continuity")
+    oct_.build_query_grid()
+    R = 128
+    u = (np.arange(R, dtype=np.float32) + 0.5) / R - 0.5
+    gu, gv = np.meshgrid(u, u)
+    origins = np.stack([gu, gv, np.full_like(gu, -1.2)], -1).reshape(-1, 3)
+    dirs = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (R * R, 1))
+    res = trace_octree(oct_, origins, dirs, max_iters=1024)
+    size = float(oct_.box.size[0])
+    hit, _, depth, _ = sphere_trace(
+        oct_.get_distance, origins, dirs, eps=1e-5 * size, far=4.0 * size,
+        max_iters=1024)
+    hit, depth = np.asarray(hit), np.asarray(depth)
+    got_hit, got_depth = np.asarray(res.hit), np.asarray(res.depth)
+    assert hit.mean() > 0.2
+    assert np.mean(got_hit != hit) <= 2e-3
+    both = got_hit & hit
+    assert np.max(np.abs(got_depth[both] - depth[both])) <= 1e-3
